@@ -1,18 +1,17 @@
-"""chowdsp_fft_tpu — a TPU-native FFT + fast-convolution framework.
+"""chowdsp_fft_tpu — a JAX FFT + fast-convolution framework for accelerators.
 
-Brand-new JAX/XLA/Pallas implementation of the capabilities of
-Chowdhury-DSP/chowdsp_fft (a SIMD pffft fork): single-precision real and
-complex FFTs, unordered transforms, frequency-domain convolve/accumulate —
-re-designed TPU-first and extended with the streaming DSP + multi-chip
-sharding layers the TPU deployment story requires (overlap-save partitioned
-convolution, polyphase channelization, ICI halo exchange).
+JAX/XLA implementation of the capabilities of Chowdhury-DSP/chowdsp_fft (a
+SIMD pffft fork): single-precision real and complex FFTs, unordered
+transforms, frequency-domain convolve/accumulate — extended with streaming
+DSP and multi-device sharding layers (overlap-save partitioned convolution,
+polyphase channelization, halo exchange between devices).
 
 Layers (see SURVEY.md section 7):
   plans     — factorization + twiddle tables as pytrees
-  ops       — compute engines: jnp Stockham (portable) + Pallas (metal)
+  ops       — compute engines: xla (jnp.fft; cuFFT on a GPU) + jnp Stockham
   api       — the public transform/convolve surface (this module re-exports)
   stream    — overlap-save FIR, polyphase resampling, channelizer, demod
-  parallel  — mesh/shard_map sharding, ICI halo exchange collectives
+  parallel  — mesh/shard_map sharding, halo exchange collectives
   models    — end-to-end SDR chains (the "model zoo" of a DSP framework)
   adapters  — drop-in shims (numpy-like, JUCE-engine analog)
 """
@@ -57,14 +56,5 @@ from .api import (  # noqa: F401
     spectrum_to_packed_planes,
     vector_width_bytes,
 )
-
-# Importing the Pallas engine registers it with the api dispatcher. It is
-# optional: environments without a functional Pallas lowering still get the
-# full API via the Stockham engine.
-try:  # pragma: no cover - exercised implicitly
-    from .ops import pallas_fft as _pallas_fft  # noqa: F401
-    from .ops.pallas_fft import merge_precision  # noqa: F401
-except Exception:  # noqa: BLE001
-    _pallas_fft = None
 
 __version__ = "0.2.0"

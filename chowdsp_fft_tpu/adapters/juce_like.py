@@ -36,8 +36,8 @@ class JuceStyleFFT:
         self.size = 1 << order
         self.engine = engine
         # Self-jit the transform methods: callers use this adapter eagerly
-        # (JUCE style), and some TPU runtimes cannot execute complex ops
-        # op-by-op. jit also caches per input shape, like the reference
+        # (JUCE style), and op-by-op dispatch of the complex ops costs one
+        # launch each. jit also caches per input shape, like the reference
         # adapter's persistent setups (:97-110).
         import jax as _jax
 

@@ -6,7 +6,7 @@ Functional JAX re-design of the reference's 10-function C API
   fft_new_setup / _preallocated / destroy  -> make_plan (plans are pytrees;
                                               no destroy, no placement)
   fft_bytes_required                       -> plan_bytes (informational)
-  fft_simd_width_bytes                     -> vector_width_bytes (VPU lanes)
+  fft_simd_width_bytes                     -> vector_width_bytes
   fft_transform                            -> fft / ifft / rfft / irfft
   fft_transform_unordered                  -> *_unordered variants
   fft_convolve_unordered                   -> convolve_accumulate
@@ -22,26 +22,11 @@ Semantics preserved from the reference:
   differ); this module guarantees only that unordered-forward ->
   convolve -> unordered-backward round-trips.
 
-In-place capability (the reference documents "input and output may alias",
-/root/reference/chowdsp_fft.h:136, and its own bench transforms in place):
-the complex metal kernels declare ``input_output_aliases``, so under
-``jax.jit`` XLA lands the output planes on the input pages WHENEVER the
-input value is dead after the call — the functional-JAX form of in-place.
-Callers opt in simply by not reusing the input (chains, scan carries,
-donated jit arguments via ``jax.jit(f, donate_argnums=...)``); callers that
-keep the input alive still get value semantics, at the cost of a defensive
-copy XLA inserts (measured +25% on the mid-band complex kernel vs the 30%
-in-place win — benchmarks/NOTES.md round 5). Real-transform kernels have
-asymmetric in/out shapes and never alias; their IO footprint already sits
-in the fast HBM window.
-
-Engine dispatch (the TPU analog of the reference's AVX-vs-SSE runtime
-dispatch via pointer tagging, /root/reference/chowdsp_fft.cpp:213-280):
-``engine="auto"`` picks the Pallas metal engine when the size/backend
-supports it and falls back to the jnp Stockham engine otherwise — the same
-try-the-fast-backend-else-fall-back shape as fft_new_setup_preallocated
-(/root/reference/chowdsp_fft.cpp:258-280), decided at trace time instead of
-at setup time.
+Engine dispatch (the analog of the reference's AVX-vs-SSE runtime dispatch
+via pointer tagging, reference chowdsp_fft.cpp:213-280):
+``engine="auto"`` picks the ``xla`` engine (``jnp.fft``: cuFFT on a GPU,
+ducc on the CPU) on every backend. ``engine="stockham"`` selects the
+pure-jnp mixed-radix engine explicitly.
 """
 
 from __future__ import annotations
@@ -63,7 +48,7 @@ from .plans import (
     is_valid_size,
     make_plan,
 )
-from .ops import stockham
+from .ops import stockham, xla_fft
 from .ops.convolve import (
     accumulate,
     convolve_accumulate,
@@ -114,80 +99,55 @@ __all__ = [
 ]
 
 # ---------------------------------------------------------------------------
-# Engine registry. The Pallas engine registers itself on import (see
-# ops/pallas_fft.py); the Stockham jnp engine is always available.
+# Engines. Each supplies a complex FFT, a real forward and a real inverse
+# (unscaled, natural bin order); the packed-plane and planes forms are the
+# same adapters for both. Natural order is a legal choice of engine-private
+# "unordered" layout, so the *_unordered entries are the ordered ones.
 # ---------------------------------------------------------------------------
 
-_ENGINES: dict[str, dict[str, Callable]] = {}
 
+def _engine(cfft: Callable, rfft: Callable, irfft: Callable) -> dict[str, Callable]:
+    def rfft_packed(x, plan=None):
+        return spectrum_to_packed_planes(rfft(x, plan))
 
-def register_engine(
-    name: str,
-    fns: dict[str, Callable],
-    supports: Callable[[FFTPlan], bool],
-    prefers: Callable[[FFTPlan], bool] | None = None,
-):
-    """``supports`` gates what the engine can serve (explicit ``engine=``
-    requests); ``prefers`` (default: same as ``supports``) gates what
-    ``engine="auto"`` hands it — engines drop plans they can run but are
-    measured slower on, and auto falls through to the next engine."""
-    _ENGINES[name] = {
-        "fns": fns,
-        "supports": supports,
-        "prefers": supports if prefers is None else prefers,
+    def irfft_packed(re, im, plan=None):
+        return irfft(packed_planes_to_spectrum(re, im), plan)
+
+    def cfft_planes(re, im, plan=None, direction=FFT_FORWARD):
+        z = cfft(jax.lax.complex(jnp.asarray(re, jnp.float32), jnp.asarray(im, jnp.float32)), plan, direction)
+        return z.real, z.imag
+
+    return {
+        "cfft": cfft,
+        "rfft": rfft,
+        "irfft": irfft,
+        "cfft_unordered": cfft,
+        "rfft_unordered": rfft,
+        "irfft_unordered": irfft,
+        "rfft_packed": rfft_packed,
+        "irfft_packed": irfft_packed,
+        "rfft_packed_unordered": rfft_packed,
+        "irfft_packed_unordered": irfft_packed,
+        "cfft_planes": cfft_planes,
+        "cfft_planes_unordered": cfft_planes,
     }
 
 
-def _stockham_rfft_packed(x, plan=None):
-    return spectrum_to_packed_planes(stockham.rfft(x, plan))
+# Fastest first; "auto" takes the first (measured on the H100: PERF.md).
+_ENGINES: dict[str, dict[str, Callable]] = {
+    "xla": _engine(xla_fft.cfft, xla_fft.rfft, xla_fft.irfft),
+    "stockham": _engine(stockham.cfft, stockham.rfft, stockham.irfft),
+}
+_AUTO = "xla"
 
 
-def _stockham_irfft_packed(re, im, plan=None):
-    return stockham.irfft(packed_planes_to_spectrum(re, im), plan)
-
-
-def _stockham_cfft_planes(re, im, plan=None, direction=FFT_FORWARD):
-    z = stockham.cfft(jax.lax.complex(re, im), plan, direction)
-    return z.real, z.imag
-
-
-register_engine(
-    "stockham",
-    {
-        "cfft": stockham.cfft,
-        "rfft": stockham.rfft,
-        "irfft": stockham.irfft,
-        # Stockham output is naturally ordered; its "unordered" layout is
-        # simply the ordered one (a legal choice of internal layout).
-        "cfft_unordered": stockham.cfft,
-        "rfft_unordered": stockham.rfft,
-        "irfft_unordered": stockham.irfft,
-        "rfft_packed": _stockham_rfft_packed,
-        "irfft_packed": _stockham_irfft_packed,
-        "rfft_packed_unordered": _stockham_rfft_packed,
-        "irfft_packed_unordered": _stockham_irfft_packed,
-        "cfft_planes": _stockham_cfft_planes,
-        "cfft_planes_unordered": _stockham_cfft_planes,
-    },
-    supports=lambda plan: True,
-)
-
-
-def _pick_engine(plan: FFTPlan, engine: str) -> dict[str, Callable]:
-    if engine != "auto":
-        e = _ENGINES.get(engine)
-        if e is None:
-            raise ValueError(f"unknown engine {engine!r}; have {sorted(_ENGINES)}")
-        if not e["supports"](plan):
-            raise ValueError(f"engine {engine!r} does not support plan (N={plan.n}, kind={plan.kind})")
-        return e["fns"]
-    # auto: prefer the metal engine, fall back to stockham — mirrors the
-    # reference's AVX-then-SSE fallback (/root/reference/chowdsp_fft.cpp:258-280).
-    for name in ("pallas", "stockham"):
-        e = _ENGINES.get(name)
-        if e is not None and e["prefers"](plan):
-            return e["fns"]
-    raise AssertionError("stockham engine should always be available")
+def _pick_engine(engine: str) -> dict[str, Callable]:
+    # auto mirrors the reference's AVX-else-SSE setup dispatch
+    # (reference chowdsp_fft.cpp:258-280), decided at trace time.
+    fns = _ENGINES.get(_AUTO if engine == "auto" else engine)
+    if fns is None:
+        raise ValueError(f"unknown engine {engine!r}; have {sorted(_ENGINES)}")
+    return fns
 
 
 # ---------------------------------------------------------------------------
@@ -196,35 +156,27 @@ def _pick_engine(plan: FFTPlan, engine: str) -> dict[str, Callable]:
 
 
 def available_engines() -> tuple[str, ...]:
-    """Registered engine names, fastest first — the introspection analog of
-    the reference's CPU capability probe (`cpu_supports_avx`,
-    /root/reference/chowdsp_fft.cpp:107-211): it reports what the dispatch
-    layer can actually use on this process's backend."""
-    names = [n for n in ("pallas", "stockham") if n in _ENGINES]
-    names += [n for n in _ENGINES if n not in names]
-    return tuple(names)
+    """Engine names, fastest first — the introspection analog of the
+    reference's CPU capability probe (`cpu_supports_avx`,
+    reference chowdsp_fft.cpp:107-211)."""
+    return tuple(_ENGINES)
 
 
 def engine_for(n: int, kind: str = FFT_COMPLEX) -> str:
-    """Which engine ``engine="auto"`` would select for this transform —
-    the analog of inspecting the reference's setup pointer tag
-    (/root/reference/chowdsp_fft.cpp:213-229)."""
-    plan = cached_plan(n, kind)
-    for name in ("pallas", "stockham"):
-        e = _ENGINES.get(name)
-        if e is not None and e["prefers"](plan):
-            return name
-    raise AssertionError("stockham engine should always be available")
+    """Which engine ``engine="auto"`` selects for this transform — the
+    analog of inspecting the reference's setup pointer tag
+    (reference chowdsp_fft.cpp:213-229). Raises InvalidSizeError for
+    an unsupported size."""
+    cached_plan(n, kind)
+    return _AUTO
 
 
 def engine_supports(name: str, n: int, kind: str = FFT_COMPLEX) -> bool:
-    """Whether an explicit ``engine=name`` request can serve this transform
-    (a superset of what ``engine_for`` auto-selects: an engine may support a
-    plan it is measured slower on and therefore doesn't prefer)."""
-    e = _ENGINES.get(name)
-    if e is None:
+    """Whether an explicit ``engine=name`` request can serve this
+    transform: every engine serves every valid plan."""
+    if name not in _ENGINES:
         raise ValueError(f"unknown engine {name!r}; have {sorted(_ENGINES)}")
-    return bool(e["supports"](cached_plan(n, kind)))
+    return is_valid_size(n, kind)
 
 
 def plan_bytes(n: int, kind: str = FFT_COMPLEX) -> int:
@@ -241,10 +193,10 @@ def plan_bytes(n: int, kind: str = FFT_COMPLEX) -> int:
 
 
 def vector_width_bytes() -> int:
-    """TPU VPU lane width in bytes (128 fp32 lanes), the analog of
-    ``fft_simd_width_bytes`` (/root/reference/chowdsp_fft.h:121-122, 16 for
-    SSE/NEON, 32 for AVX)."""
-    return 128 * 4
+    """Bytes one GPU warp moves in a single coalesced float32 access (32
+    lanes x 4 bytes), the analog of ``fft_simd_width_bytes``
+    (reference chowdsp_fft.h:121-122, 16 for SSE/NEON, 32 for AVX)."""
+    return 32 * 4
 
 
 # ---------------------------------------------------------------------------
@@ -255,44 +207,44 @@ def vector_width_bytes() -> int:
 def fft(x: jax.Array, plan: FFTPlan | None = None, engine: str = "auto") -> jax.Array:
     """Ordered forward complex FFT over the last axis -> (..., N) complex64."""
     plan = plan or cached_plan(x.shape[-1], FFT_COMPLEX)
-    return _pick_engine(plan, engine)["cfft"](x, plan, FFT_FORWARD)
+    return _pick_engine(engine)["cfft"](x, plan, FFT_FORWARD)
 
 
 def ifft(spec: jax.Array, plan: FFTPlan | None = None, engine: str = "auto") -> jax.Array:
     """Ordered backward complex FFT (unscaled: returns N * inverse)."""
     plan = plan or cached_plan(spec.shape[-1], FFT_COMPLEX)
-    return _pick_engine(plan, engine)["cfft"](spec, plan, FFT_BACKWARD)
+    return _pick_engine(engine)["cfft"](spec, plan, FFT_BACKWARD)
 
 
 def rfft(x: jax.Array, plan: FFTPlan | None = None, engine: str = "auto") -> jax.Array:
     """Real forward FFT -> canonical (..., N//2+1) complex spectrum."""
     plan = plan or cached_plan(x.shape[-1], FFT_REAL)
-    return _pick_engine(plan, engine)["rfft"](x, plan)
+    return _pick_engine(engine)["rfft"](x, plan)
 
 
 def irfft(spec: jax.Array, plan: FFTPlan | None = None, engine: str = "auto") -> jax.Array:
     """Backward real FFT (unscaled): irfft(rfft(x)) == N * x -> (..., N) f32."""
     n = 2 * (spec.shape[-1] - 1)
     plan = plan or cached_plan(n, FFT_REAL)
-    return _pick_engine(plan, engine)["irfft"](spec, plan)
+    return _pick_engine(engine)["irfft"](spec, plan)
 
 
 def fft_unordered(x: jax.Array, plan: FFTPlan | None = None, engine: str = "auto") -> jax.Array:
     """Forward complex FFT in engine-internal frequency order
     (capability of ``fft_transform_unordered``, /root/reference/chowdsp_fft.h:140-145)."""
     plan = plan or cached_plan(x.shape[-1], FFT_COMPLEX)
-    return _pick_engine(plan, engine)["cfft_unordered"](x, plan, FFT_FORWARD)
+    return _pick_engine(engine)["cfft_unordered"](x, plan, FFT_FORWARD)
 
 
 def ifft_unordered(spec: jax.Array, plan: FFTPlan | None = None, engine: str = "auto") -> jax.Array:
     """Backward complex FFT consuming engine-internal frequency order."""
     plan = plan or cached_plan(spec.shape[-1], FFT_COMPLEX)
-    return _pick_engine(plan, engine)["cfft_unordered"](spec, plan, FFT_BACKWARD)
+    return _pick_engine(engine)["cfft_unordered"](spec, plan, FFT_BACKWARD)
 
 
 def rfft_unordered(x: jax.Array, plan: FFTPlan | None = None, engine: str = "auto") -> jax.Array:
     plan = plan or cached_plan(x.shape[-1], FFT_REAL)
-    return _pick_engine(plan, engine)["rfft_unordered"](x, plan)
+    return _pick_engine(engine)["rfft_unordered"](x, plan)
 
 
 def fft_planes(
@@ -304,11 +256,10 @@ def fft_planes(
 ):
     """Complex FFT on SoA float32 planes -> (re, im) planes (ordered).
 
-    The planes interface skips the complex64 interleave relayouts the
-    complex wrappers pay around the kernels — the complex analog of
-    :func:`rfft_packed`. Unscaled both directions."""
+    The complex analog of :func:`rfft_packed`: SoA float32 planes in and
+    out. Unscaled both directions."""
     plan = plan or cached_plan(re.shape[-1], FFT_COMPLEX)
-    return _pick_engine(plan, engine)["cfft_planes"](re, im, plan, direction)
+    return _pick_engine(engine)["cfft_planes"](re, im, plan, direction)
 
 
 def ifft_planes(re, im, plan=None, engine: str = "auto"):
@@ -324,7 +275,7 @@ def fft_planes_unordered(
 ):
     """Planes complex FFT in engine-internal frequency order."""
     plan = plan or cached_plan(re.shape[-1], FFT_COMPLEX)
-    return _pick_engine(plan, engine)["cfft_planes_unordered"](re, im, plan, direction)
+    return _pick_engine(engine)["cfft_planes_unordered"](re, im, plan, direction)
 
 
 def ifft_planes_unordered(re, im, plan=None, engine: str = "auto"):
@@ -334,14 +285,13 @@ def ifft_planes_unordered(re, im, plan=None, engine: str = "auto"):
 def rfft_packed(x: jax.Array, plan: FFTPlan | None = None, engine: str = "auto"):
     """Real FFT -> packed SoA half-spectrum planes ((..., N/2) f32 re, im).
 
-    The framework's fastest real-transform path (one fused kernel on the
-    Pallas engine; minimal HBM traffic). Layout: re[k]/im[k] hold bin k for
+    Layout: re[k]/im[k] hold bin k for
     k in [1, N/2); re[0] = DC, im[0] = Nyquist — the SoA rendition of
     pffft's packed real spectrum (/root/reference/chowdsp_fft_juce/
     chowdsp_fft_juce.cpp:48-61). Pair with :func:`irfft_packed` and
     :func:`convolve_accumulate_packed`."""
     plan = plan or cached_plan(x.shape[-1], FFT_REAL)
-    return _pick_engine(plan, engine)["rfft_packed"](x, plan)
+    return _pick_engine(engine)["rfft_packed"](x, plan)
 
 
 def irfft_packed(
@@ -349,7 +299,7 @@ def irfft_packed(
 ) -> jax.Array:
     """Unscaled inverse of :func:`rfft_packed`: (..., N) f32 == N * x."""
     plan = plan or cached_plan(2 * re.shape[-1], FFT_REAL)
-    return _pick_engine(plan, engine)["irfft_packed"](re, im, plan)
+    return _pick_engine(engine)["irfft_packed"](re, im, plan)
 
 
 def rfft_packed_unordered(x: jax.Array, plan: FFTPlan | None = None, engine: str = "auto"):
@@ -357,20 +307,20 @@ def rfft_packed_unordered(x: jax.Array, plan: FFTPlan | None = None, engine: str
     so convolve_accumulate_packed applies unchanged) — the packed analog of
     ``fft_transform_unordered`` (/root/reference/chowdsp_fft.h:140-145)."""
     plan = plan or cached_plan(x.shape[-1], FFT_REAL)
-    return _pick_engine(plan, engine)["rfft_packed_unordered"](x, plan)
+    return _pick_engine(engine)["rfft_packed_unordered"](x, plan)
 
 
 def irfft_packed_unordered(
     re: jax.Array, im: jax.Array, plan: FFTPlan | None = None, engine: str = "auto"
 ) -> jax.Array:
     plan = plan or cached_plan(2 * re.shape[-1], FFT_REAL)
-    return _pick_engine(plan, engine)["irfft_packed_unordered"](re, im, plan)
+    return _pick_engine(engine)["irfft_packed_unordered"](re, im, plan)
 
 
 def irfft_unordered(spec: jax.Array, plan: FFTPlan | None = None, engine: str = "auto") -> jax.Array:
     n = 2 * (spec.shape[-1] - 1)
     plan = plan or cached_plan(n, FFT_REAL)
-    return _pick_engine(plan, engine)["irfft_unordered"](spec, plan)
+    return _pick_engine(engine)["irfft_unordered"](spec, plan)
 
 
 def convolve_irfft_packed(
@@ -383,19 +333,14 @@ def convolve_irfft_packed(
     engine: str = "auto",
     ordered: bool = True,
 ) -> jax.Array:
-    """Fused spectral multiply + unscaled real inverse:
-    ``irfft_packed(convolve_accumulate_packed(A, B, scaling=scaling))`` as
-    ONE kernel on the Pallas engine — the product spectrum never round-trips
-    through HBM, which removes ~2 memory passes from the reference's
-    convolve-then-inverse pipeline (/root/reference/chowdsp_fft.h:147-154
-    feeding the backward transform). B may be a single shared spectrum (a
-    filter) broadcast over A's batch. Engines without the fused kernel run
-    the identical unfused composition."""
+    """Spectral multiply + unscaled real inverse:
+    ``irfft_packed(convolve_accumulate_packed(A, B, scaling=scaling))``, the
+    reference's convolve-then-inverse pipeline
+    (reference chowdsp_fft.h:147-154 feeding the backward transform).
+    B may be a single shared spectrum (a filter) broadcast over A's batch.
+    XLA fuses the product into one elementwise pass before the inverse."""
     plan = plan or cached_plan(2 * are.shape[-1], FFT_REAL)
-    eng = _pick_engine(plan, engine)
-    fn = eng.get("convolve_irfft_packed")
-    if fn is not None:
-        return fn(are, aim, bre, bim, scaling=scaling, ordered=ordered)
+    eng = _pick_engine(engine)
     pr, pi = convolve_accumulate_packed((are, aim), (bre, bim), scaling=scaling)
     key = "irfft_packed" if ordered else "irfft_packed_unordered"
     return eng[key](pr, pi, plan)

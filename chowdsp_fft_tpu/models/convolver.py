@@ -5,13 +5,13 @@ convolved with long impulse responses through the uniformly partitioned
 overlap-save FDL (stream.PartitionedFIR) — the workload whose hot op is
 the reference's fused ``ab += a * b * scaling`` convolve-accumulate
 (/root/reference/simd/chowdsp_fft_impl_sse.cpp:1603-1645), batched over
-channels and sharded over chips.
+channels and sharded over devices.
 
 Two sharding modes (parallel/):
-  - channel-sharded: each chip owns whole channels; zero communication
-    (the multi-chip generalization of the reference's lane parallelism).
-  - time-sharded: each chip owns a time shard of every channel; one
-    (taps-1)-sample halo ppermute per application rides ICI.
+  - channel-sharded: each device owns whole channels; zero communication
+    (the multi-device generalization of the reference's lane parallelism).
+  - time-sharded: each device owns a time shard of every channel; one
+    (taps-1)-sample halo ppermute per application crosses devices.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ class MultichannelConvolver:
         """One (channels, block) frame in -> one (channels, block) out."""
         return self.fir.step(state, frame)
 
-    # -- multi-chip ----------------------------------------------------------
+    # -- multi-device --------------------------------------------------------
 
     def channel_sharded_apply(self, mesh: Mesh, axis_name: str = CHANNEL_AXIS):
         """Channels sharded over the mesh: zero-communication data parallel.
@@ -89,7 +89,7 @@ class MultichannelConvolver:
         return run
 
     def time_sharded_apply(self, mesh: Mesh, axis_name: str):
-        """Time axis sharded over the mesh; halo exchange over ICI. Returns
+        """Time axis sharded over the mesh; halo exchange between neighbours. Returns
         a (T,) -> (T,) function applied per channel via vmap."""
 
         def run(x):

@@ -5,15 +5,15 @@ BASELINE.json config 5: "polyphase decimate -> FFT channelizer -> FM demod,
 shardable composition of every layer —
 
     IQ stream (..., T)
-      -> polyphase decimation (MXU convolutions)
-      -> polyphase FFT channelizer (Pallas/Stockham complex FFT)
-      -> per-channel FM discriminator (VPU)
+      -> polyphase decimation (XLA convolutions at HIGHEST precision)
+      -> polyphase FFT channelizer (api complex FFT)
+      -> per-channel FM discriminator (elementwise)
       -> audio low-pass + decimate per channel
 
-Multi-chip: the wideband front half is time-sharded with halo exchange;
+Multi-device: the wideband front half is time-sharded with halo exchange;
 the per-channel back half is channel-sharded. The single
 with_sharding_constraint between them lets XLA place the all_to_all
-reshard on ICI (the GSPMD-idiomatic seam).
+reshard between devices (the GSPMD-idiomatic seam).
 """
 
 from __future__ import annotations
@@ -82,13 +82,13 @@ class SDRChain:
         return self.back_end(self.channelizer(self.front_end(iq)))
 
     # ------------------------------------------------------------------
-    # Multi-chip application
+    # Multi-device application
     # ------------------------------------------------------------------
 
     def sharded_step(self, mesh: Mesh, axis_name: str | None = None):
         """Returns a jitted fn computing the chain with the wideband input
         time-sharded and the channelized back half channel-sharded; XLA
-        inserts the ICI all_to_all at the seam."""
+        inserts the all_to_all at the seam."""
         axis = axis_name or (
             TIME_AXIS if TIME_AXIS in mesh.axis_names else mesh.axis_names[0]
         )

@@ -1,3 +1,3 @@
 """Compute engines and frequency-domain ops."""
 
-from . import convolve, layout, stockham  # noqa: F401
+from . import convolve, layout, stockham, xla_fft  # noqa: F401

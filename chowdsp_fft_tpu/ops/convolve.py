@@ -1,6 +1,6 @@
 """Frequency-domain convolution helpers.
 
-TPU equivalents of the reference's convolution primitives:
+Equivalents of the reference's convolution primitives:
 - ``convolve_accumulate`` <-> ``fft_convolve_unordered`` /
   ``pffft_convolve_internal`` (/root/reference/chowdsp_fft.cpp:398-432,
   simd/chowdsp_fft_impl_sse.cpp:1603-1645): ab += a * b * scaling on
@@ -13,7 +13,7 @@ Nyquist are their own bins), no scalar patch-up of a packed DC/Nyquist
 element is needed — the reference needs one because pffft's real layout
 packs Nyquist into the DC slot (sse:1640-1644). The ops are plain
 elementwise math: under jit XLA fuses them into neighboring kernels, which
-is the TPU analog of the reference's hand-unrolled SIMD loops.
+is the analog of the reference's hand-unrolled SIMD loops.
 """
 
 from __future__ import annotations
@@ -93,5 +93,5 @@ def accumulate(a: jax.Array, b: jax.Array) -> jax.Array:
     """Elementwise sum of two signals (``fft_accumulate``,
     /root/reference/chowdsp_fft.h:156-160). The reference restricts N to a
     multiple of the SIMD width (sse:1647-1660); no such restriction exists
-    here — the VPU tile handles any shape."""
+    here — XLA handles any shape."""
     return a + b

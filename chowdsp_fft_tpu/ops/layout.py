@@ -35,7 +35,7 @@ def spectrum_to_packed_planes(spec: jax.Array) -> tuple[jax.Array, jax.Array]:
 
     This is the plane-separated rendition of the pffft packed layout (the
     interleaved original is :func:`to_packed_real_spectrum`); it is the
-    native output format of the Pallas engine's fused real transforms."""
+    format of :func:`chowdsp_fft_tpu.rfft_packed`."""
     re = spec[..., :-1].real.astype(jnp.float32)
     nyq = spec[..., -1:].real.astype(jnp.float32)
     im = jnp.concatenate([nyq, spec[..., 1:-1].imag.astype(jnp.float32)], axis=-1)

@@ -1,8 +1,8 @@
 """Mixed-radix Stockham autosort FFT engine in pure JAX.
 
-This is the TPU re-derivation of the reference's mixed-radix pass kernels
+This is the JAX re-derivation of the reference's mixed-radix pass kernels
 (passf2/3/4/5 and radf/radb 2..5, /root/reference/simd/chowdsp_fft_impl_sse.cpp:148-370,
-552-786, 1081-1356). Design differences, deliberate and TPU-first:
+552-786, 1081-1356). Design differences, deliberate:
 
 - **Stockham autosort** instead of the pffft in-place + reorder scheme: every
   stage reads/writes contiguous blocks, so no separate ``pffft_zreorder``
@@ -10,12 +10,12 @@ This is the TPU re-derivation of the reference's mixed-radix pass kernels
   needed — ordered output is a property of the dataflow, not an extra copy.
 - **No "internal layout"**: the reference runs w interleaved sub-FFTs in
   SIMD lanes and merges them with register transposes
-  (pffft_cplx_finalize, sse:434-496). On TPU the VPU's (8,128) tile already
-  vectorizes every elementwise op across batch; the batch axis *is* the
+  (pffft_cplx_finalize, sse:434-496). Under XLA every elementwise op is
+  already vectorized across the batch; the batch axis *is* the
   SIMD axis, so the engine is written batched and vmap-compatible.
 - Real transforms use the half-length complex FFT + split ("half-complex")
   algorithm rather than FFTPACK's radf/radb real passes — fewer, more
-  regular stages, and the split step is pure elementwise + flip (VPU-friendly).
+  regular stages, and the split step is pure elementwise + flip.
 - Transforms are **unscaled**: backward(forward(x)) == N * x, matching the
   reference contract (/root/reference/chowdsp_fft.h:128).
 

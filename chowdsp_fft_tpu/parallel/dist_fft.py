@@ -1,6 +1,6 @@
 """Distributed FFT: one transform sharded across a device mesh.
 
-The reference never leaves a single core; this is the multi-chip
+The reference never leaves a single core; this is the multi-device
 capability its decomposition was always pointing at (SURVEY.md §2 row 9:
 blockwise decomposition + boundary merge). The composite four-step
 factorization N = A * C maps onto a mesh holding the signal
@@ -8,18 +8,21 @@ time-contiguously (rows j of the row-major (A, C) view, n = j*C + k):
 
     X[q + A*t] = sum_k W_C^{±tk} * W_N^{±kq} * [ sum_j x[j*C+k] W_A^{±qj} ]
 
-    step 1  all_to_all transpose: each device gets C/D full columns   (ICI)
-    step 2  length-A FFTs along the now-local j axis          (local kernel)
+    step 1  all_to_all transpose: each device gets C/D full columns
+    step 2  length-A FFTs along the now-local j axis      (api engine rows)
     step 3  twiddle W_N^{±kq}                             (local, table slab)
-    step 4  all_to_all transpose back                                 (ICI)
-    step 5  length-C FFTs along the local k axis              (local kernel)
+    step 4  all_to_all transpose back
+    step 5  length-C FFTs along the local k axis          (api engine rows)
 
 Each all_to_all moves every element once (N/D per device) — the standard
-block-distributed 1-D FFT communication pattern.
+block-distributed 1-D FFT communication pattern, as plain collectives over
+the mesh axis (NCCL between GPUs). The local row transforms are the public
+api's planes transforms, so they run on whichever engine ``engine="auto"``
+picks.
 
 The result is returned in the transform's **distributed bin order**: the
 device owning output block f holds X[(f*A/D + q_loc) + A*t] at local
-position q_loc*C + t. Like the single-chip engines' "unordered" layouts
+position q_loc*C + t. Like the single-device engines' "unordered" layouts
 (the `fft_transform_unordered` capability, /root/reference/chowdsp_fft.h:
 140-145), this order is engine-private: frequency-domain elementwise work
 (convolution!) is order-independent, and :func:`sharded_ifft_planes`
@@ -37,8 +40,8 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops import pallas_fft as _pf
-from ..plans import FFT_FORWARD, FFT_BACKWARD
+from .. import api
+from ..plans import FFT_COMPLEX, FFT_FORWARD, FFT_BACKWARD, is_valid_size
 from .mesh import TIME_AXIS
 
 __all__ = [
@@ -52,32 +55,10 @@ __all__ = [
     "rspectrum_order",
 ]
 
-_MIN_FACTOR = 256  # engine-supported row length for the local FFTs
-
-
-def _dist_ok_len(x: int) -> bool:
-    """x is an engine-supported local row length: {2,3,5}-smooth, within
-    the single-kernel window, and either a multiple of 128 (Stockham
-    kernel) or inside the small direct-DFT domain — the same coverage the
-    single-chip engine guarantees for both the complex and fused-real
-    local transforms."""
-    if x < _MIN_FACTOR or x > _pf._MAX_N:
-        return False
-    if x % 128 and x > _pf._MAX_SMALL_FALLBACK:
-        return False
-    from ..plans import InvalidSizeError, factorize
-
-    try:
-        factorize(x)
-    except InvalidSizeError:
-        return False
-    return True
-
-
 @functools.lru_cache(maxsize=64)
 def _dist_split(n: int, n_dev: int, real: bool = False) -> tuple[int, int]:
-    """n = A * C, both factors engine-supported local row lengths
-    (_dist_ok_len) and divisible by n_dev; the most balanced such split.
+    """n = A * C, both factors valid plan lengths ({2,3,5}-smooth) and
+    divisible by n_dev; the most balanced such split.
     Any {2,3,5}-smooth n (the reference's full size domain,
     /root/reference/simd/chowdsp_fft_impl_common.hpp:216-225) with big
     enough factors shards; pow2 is the common case, not a requirement.
@@ -86,8 +67,8 @@ def _dist_split(n: int, n_dev: int, real: bool = False) -> tuple[int, int]:
     rows) — an odd A would silently corrupt the spectrum."""
     err = ValueError(
         f"cannot shard N={n} over {n_dev} devices (need A*C with both "
-        f"factors {{2,3,5}}-smooth, >= {_MIN_FACTOR}, <= {_pf._MAX_N}, "
-        f"divisible by {n_dev}{', A even for the real transform' if real else ''})"
+        f"factors {{2,3,5}}-smooth and divisible by {n_dev}"
+        f"{', A even for the real transform' if real else ''})"
     )
     if n <= 0:
         raise err
@@ -113,7 +94,7 @@ def _dist_split(n: int, n_dev: int, real: bool = False) -> tuple[int, int]:
                     continue
                 if a % n_dev or c % n_dev:
                     continue
-                if not (_dist_ok_len(a) and _dist_ok_len(c)):
+                if not (is_valid_size(a, FFT_COMPLEX) and is_valid_size(c, FFT_COMPLEX)):
                     continue
                 if best is None or a / c < best[0] / best[1]:
                     best = (a, c)
@@ -128,8 +109,8 @@ def _pipeline_chunks_call(fn, arrays, n_chunks: int):
     all_to_all -> local-FFT -> all_to_all chain per piece. The chunks
     share no dataflow edge, so XLA's latency-hiding scheduler is free to
     fly chunk i+1's collective while chunk i's local FFTs occupy the
-    chip — the standard comm/compute-overlap recipe for ICI-bound
-    programs. (The unchunked transform is a strict a2a->fft->a2a->fft
+    device — the standard comm/compute-overlap recipe for
+    collective-bound programs. (The unchunked transform is a strict a2a->fft->a2a->fft
     dependency chain with nothing to overlap; tests assert the chunked
     jaxpr really contains n_chunks independent collective pairs.)"""
     b = arrays[0].shape[0]
@@ -152,48 +133,28 @@ def _check_pipelineable(ndim: int, n_chunks: int) -> None:
         )
 
 
-def _engine_perm(length: int) -> np.ndarray:
-    """The single-chip engine's unordered bin permutation for a local FFT
-    of this length: digit-transposed for the Stockham-kernel path,
-    identity for the direct-DFT small path and the portable engine (both
-    emit natural order)."""
-    from ..plans import FFT_COMPLEX, cached_plan
-
-    if _pf.supports_plan(cached_plan(length, FFT_COMPLEX)) and not _pf._small_dispatch(
-        length
-    ):
-        return _pf._kernel_perm(length)
-    return np.arange(length, dtype=np.int64)
-
-
 @functools.lru_cache(maxsize=16)
 def _dist_twiddle(n: int, a: int, forward: bool):
-    """(C, A) table W_N^(sgn * k * perm_A(q)) — rows k (sharded at apply
-    time). The local level-1 FFTs run in the engine's UNORDERED layout
-    (no reorder pass); its bin permutation is folded into the twiddle
-    columns here and into :func:`spectrum_order`."""
+    """(C, A) table W_N^(sgn * k * q) — rows k (sharded at apply time)."""
     c = n // a
     sgn = -1.0 if forward else 1.0
     k = np.arange(c, dtype=np.float64)[:, None]
-    q = _engine_perm(a).astype(np.float64)[None, :]
+    q = np.arange(a, dtype=np.float64)[None, :]
     ang = sgn * 2.0 * np.pi * (k * q) / float(n)
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
 def spectrum_order(n: int, n_dev: int, transform_chunks: int = 1) -> np.ndarray:
     """perm with perm[p] = the bin stored at flat position p of the
-    distributed spectrum: p = q_row*C + t_col -> bin
-    perm_A(q_row) + A * perm_C(t_col) (both engine permutations folded).
+    distributed spectrum: p = q_row*C + t_col -> bin q_row + A * t_col.
     ``transform_chunks`` must match the value the forward ran with (its
     chunked second transpose relabels the stored rows — _chunk_rowmap)."""
     a, c = _dist_split(n, n_dev)
-    pa = _engine_perm(a)
-    pc = _engine_perm(c)
     p = np.arange(n, dtype=np.int64)
     rows = p // c
     if transform_chunks > 1:
         rows = _chunk_rowmap(a, n_dev, transform_chunks)[rows]
-    return pa[rows] + a * pc[p % c]
+    return rows + a * (p % c)
 
 
 def _a2a_transpose(v, axis_name, n_dev):
@@ -202,7 +163,7 @@ def _a2a_transpose(v, axis_name, n_dev):
     Local view (..., rows_loc, cols) of a row-sharded global (R, cols)
     matrix -> local (..., cols/D, R) rows of the transposed matrix: split
     the columns into D contiguous groups, all_to_all swaps the group index
-    with the device axis (each element moves once over ICI), then one
+    with the device axis (each element moves once), then one
     local 2D transpose. Leading batch axes ride along unsharded."""
     *lead, r_loc, cols_total = v.shape
     nb = len(lead)
@@ -285,14 +246,6 @@ def _lead_spec(ndim: int, axis_name: str) -> P:
     return P(*([None] * (ndim - 1) + [axis_name]))
 
 
-def _local_rows(fn, v_pair, length, direction):
-    """Apply a 2-plane local FFT over the last axis of (..., rows, length)."""
-    vr, vi = v_pair
-    shp = vr.shape
-    yr, yi = fn(vr.reshape(-1, length), vi.reshape(-1, length), length, direction, False)
-    return yr.reshape(shp), yi.reshape(shp)
-
-
 def sharded_fft_planes(
     re: jax.Array,
     im: jax.Array,
@@ -338,7 +291,6 @@ def sharded_fft_planes(
         mesh=mesh,
         in_specs=(spec, spec, tw_spec, tw_spec),
         out_specs=(spec, spec),
-        check_vma=False,
     )
     def run(re_loc, im_loc, twr, twi):
         xr = re_loc.reshape(*lead, rows_loc, c)
@@ -346,9 +298,8 @@ def sharded_fft_planes(
         # step 1: (A, C) -> each device holds C/D columns as rows (C/D, A)
         gr = _a2a_transpose(xr, axis_name, n_dev)
         gi = _a2a_transpose(xi, axis_name, n_dev)
-        # step 2: length-A FFTs along the local j axis, engine-unordered
-        # (the bin permutation is folded into the twiddle + spectrum_order)
-        fr, fi = _local_rows(_pf._cfft_pair, (gr, gi), a, FFT_FORWARD)
+        # step 2: length-A FFTs along the local j axis
+        fr, fi = api.fft_planes(gr, gi, direction=FFT_FORWARD)
         # step 3: twiddle W_N^{-kq}; twr arrives as this device's (C/D, A) slab
         fr, fi = fr * twr - fi * twi, fr * twi + fi * twr
         # step 4: transpose back -> (A/D, C) rows (chunked: slab g+1's
@@ -356,9 +307,9 @@ def sharded_fft_planes(
         # folded into spectrum_order)
         hr = _a2a_transpose_chunked(fr, axis_name, n_dev, transform_chunks)
         hi = _a2a_transpose_chunked(fi, axis_name, n_dev, transform_chunks)
-        # step 5: length-C FFTs along the local k axis, engine-unordered:
-        # position [q_row, t_col] holds X[perm_A(q_row) + A*perm_C(t_col)]
-        yr, yi = _local_rows(_pf._cfft_pair, (hr, hi), c, FFT_FORWARD)
+        # step 5: length-C FFTs along the local k axis:
+        # position [q_row, t_col] holds X[q_row + A*t_col]
+        yr, yi = api.fft_planes(hr, hi, direction=FFT_FORWARD)
         return yr.reshape(*lead, -1), yi.reshape(*lead, -1)
 
     return run(re, im, jnp.asarray(twr_h), jnp.asarray(twi_h))
@@ -399,18 +350,16 @@ def sharded_ifft_planes(
         mesh=mesh,
         in_specs=(spec, spec, tw_spec, tw_spec),
         out_specs=(spec, spec),
-        check_vma=False,
     )
     def run(re_loc, im_loc, twr, twi):
         yr = re_loc.reshape(*lead, a // n_dev, c)
         yi = im_loc.reshape(*lead, a // n_dev, c)
-        # mirror of the forward: the reverse pipelines natively consume
-        # the engine-unordered layouts the forward emitted
-        hr, hi = _local_rows(_pf._cfft_pair, (yr, yi), c, FFT_BACKWARD)
+        # mirror of the forward
+        hr, hi = api.fft_planes(yr, yi, direction=FFT_BACKWARD)
         fr = _a2a_transpose_chunked_rev(hr, axis_name, n_dev, transform_chunks)
         fi = _a2a_transpose_chunked_rev(hi, axis_name, n_dev, transform_chunks)
         fr, fi = fr * twr - fi * twi, fr * twi + fi * twr
-        gr, gi = _local_rows(_pf._cfft_pair, (fr, fi), a, FFT_BACKWARD)
+        gr, gi = api.fft_planes(fr, fi, direction=FFT_BACKWARD)
         xr = _a2a_transpose(gr, axis_name, n_dev)
         xi = _a2a_transpose(gi, axis_name, n_dev)
         return xr.reshape(*lead, -1), xi.reshape(*lead, -1)
@@ -419,20 +368,20 @@ def sharded_ifft_planes(
 
 
 # ---------------------------------------------------------------------------
-# Distributed REAL transform (round 2): the reference's convolution surface
-# is real-first (/root/reference/chowdsp_fft.h:147-154); this is its
-# multi-chip rendition. Same two-level factorization as the complex path,
-# but level 1 runs the LOCAL fused packed rfft (half the compute and local
+# Distributed REAL transform: the reference's convolution surface is
+# real-first (reference chowdsp_fft.h:147-154); this is its
+# multi-device rendition. Same two-level factorization as the complex path,
+# but level 1 runs the LOCAL packed rfft (half the compute and local
 # traffic of a complex level 1), and only the A/2+1 Hermitian-independent
 # spectral rows travel through the second all_to_all.
 #
 # Distributed packed real spectrum (engine-private, like every "unordered"
 # layout here): planes (..., rows_p * C) sharded over the axis, viewed as
 # (rows_p, C) with rows_p = A/2+1 zero-padded up to a device-divisible
-# count. Row r <= A/2 at column t holds X[r + A*perm_C(t)] of the FULL
+# count. Row r <= A/2 at column t holds X[r + A*t] of the FULL
 # length-N spectrum (rows 0 and A/2 therefore carry their entire
 # Hermitian-redundant line; padding rows are zero). DC = (0,0); the global
-# Nyquist X[N/2] sits in row A/2 at the column where perm_C(t) = C/2. The
+# Nyquist X[N/2] sits in row A/2 at column C/2. The
 # layout multiplies elementwise with NO DC/Nyquist patch-ups — conjugate
 # redundancy is preserved by real-signal products — which is what
 # sharded_rfft_convolve relies on.
@@ -473,7 +422,7 @@ def rspectrum_order(n: int, n_dev: int, transform_chunks: int = 1) -> np.ndarray
     X[perm[p]] for real input)."""
     a, c = _dist_split(n, n_dev, real=True)
     rows_p = _rdist_rows(a, n_dev, transform_chunks)
-    pc = _engine_perm(c)
+    pc = np.arange(c, dtype=np.int64)
     out = np.full(rows_p * c, -1, dtype=np.int64)
     rowmap = (
         _chunk_rowmap(rows_p, n_dev, transform_chunks)
@@ -525,17 +474,13 @@ def sharded_rfft_planes(
         mesh=mesh,
         in_specs=(spec, tw_spec, tw_spec, tw_spec, tw_spec),
         out_specs=(spec, spec),
-        check_vma=False,
     )
     def run(x_loc, twr, twi, nytr, nyti):
         xr = x_loc.reshape(*lead, rows_loc, c)
         # step 1: transpose -> each device holds C/D stride-C subsequences
         g = _a2a_transpose(xr, axis_name, n_dev)  # (..., C/D, A) real
-        # step 2: local fused packed rfft of length A per subsequence
-        gs = g.shape
-        pre, pim = _pf._pallas_rfft_packed(g.reshape(-1, a), a, True)
-        pre = pre.reshape(*gs[:-1], half_a)
-        pim = pim.reshape(*gs[:-1], half_a)
+        # step 2: local packed rfft of length A per subsequence
+        pre, pim = api.rfft_packed(g)
         # step 3: build the A/2+1 level-2 rows per column: DC (real),
         # twiddled k1 = 1..A/2-1, Nyquist pre-modulated by W_2C^{-c} (its
         # half-bin-shifted transform becomes a plain C-FFT)
@@ -551,8 +496,8 @@ def sharded_rfft_planes(
         # (chunked: see sharded_fft_planes step 4)
         hr = _a2a_transpose_chunked(lvl_re, axis_name, n_dev, transform_chunks)
         hi = _a2a_transpose_chunked(lvl_im, axis_name, n_dev, transform_chunks)
-        # step 5: length-C FFTs along the local row, engine-unordered
-        yr, yi = _local_rows(_pf._cfft_pair, (hr, hi), c, FFT_FORWARD)
+        # step 5: length-C FFTs along the local row
+        yr, yi = api.fft_planes(hr, hi, direction=FFT_FORWARD)
         return yr.reshape(*lead, -1), yi.reshape(*lead, -1)
 
     return run(
@@ -602,13 +547,12 @@ def sharded_irfft_planes(
         mesh=mesh,
         in_specs=(spec, spec, tw_spec, tw_spec, tw_spec, tw_spec),
         out_specs=spec,
-        check_vma=False,
     )
     def run(re_loc, im_loc, twr, twi, nytr, nyti):
         yr = re_loc.reshape(*lead, rows_p // n_dev, c)
         yi = im_loc.reshape(*lead, rows_p // n_dev, c)
-        # mirror of forward step 5: backward C-FFTs consume the unordered bins
-        hr, hi = _local_rows(_pf._cfft_pair, (yr, yi), c, FFT_BACKWARD)
+        # mirror of forward step 5: backward C-FFTs
+        hr, hi = api.fft_planes(yr, yi, direction=FFT_BACKWARD)
         # transpose -> (..., C/D, rows_p) in natural row order (the chunked
         # reverse inverts the forward's relabeling); slice padding rows
         ur = _a2a_transpose_chunked_rev(hr, axis_name, n_dev, transform_chunks)[
@@ -626,11 +570,8 @@ def sharded_irfft_planes(
         ny = ur[..., half_a:] * nytr + ui[..., half_a:] * nyti
         pre = jnp.concatenate([dc, mid_re], axis=-1)
         pim = jnp.concatenate([ny, mid_im], axis=-1)
-        # local fused packed irfft of length A (unscaled: factor A)
-        ps = pre.shape
-        g = _pf._pallas_irfft_packed(
-            pre.reshape(-1, half_a), pim.reshape(-1, half_a), a, True
-        ).reshape(*ps[:-1], a)
+        # local packed irfft of length A (unscaled: factor A)
+        g = api.irfft_packed(pre, pim)
         # transpose back to time-contiguous rows
         xr = _a2a_transpose(g, axis_name, n_dev)
         return xr.reshape(*lead, -1)
@@ -658,7 +599,7 @@ def sharded_rfft_convolve(
     and batched: two distributed real forwards, an elementwise spectral
     product on the distributed packed layout (no DC/Nyquist patch-ups
     needed — see the layout note above), one distributed real inverse.
-    The multi-chip, real-first rendition of the reference's raison d'être
+    The multi-device, real-first rendition of the reference's raison d'être
     (/root/reference/chowdsp_fft.h:147-154). ``scaling`` defaults to 1/N.
     ``pipeline_chunks``: see :func:`sharded_fft_planes`.
     """
@@ -691,7 +632,7 @@ def sharded_fft_convolve(
     """Circular convolution of two length-N complex signals, everything
     distributed: two sharded forward FFTs, an elementwise spectral product
     (order-independent, so the distributed bin order never matters — the
-    multi-chip rendition of the reference's unordered convolve pipeline,
+    multi-device rendition of the reference's unordered convolve pipeline,
     /root/reference/test/test.cpp:131-232), one sharded inverse.
 
     ``scaling`` defaults to 1/N, returning the true circular convolution.

@@ -2,9 +2,13 @@
 
 The reference is strictly single-core (SURVEY.md section 2 rows 9-10: no
 threads, no processes, no devices — its only parallelism is SIMD lanes).
-Multi-chip scaling is therefore new, TPU-native surface: a 1-D or 2-D
+Multi-device scaling is therefore new surface: a 1-D or 2-D
 `jax.sharding.Mesh` whose axes shard DSP channels and stream time-blocks,
-with XLA/ICI collectives doing the communication.
+with XLA collectives (NCCL between GPUs) doing the communication. The
+cards of one host are joined all to all (NVLink), so every pair of
+devices talks at the same rate and a mesh's shape follows the algorithm
+alone: a 1-D axis for the time-sharded and distributed-FFT paths, a
+(chan, time) grid where both are sharded.
 """
 
 from __future__ import annotations
@@ -45,19 +49,20 @@ def init_multihost(
     process_id: int | None = None,
     **kwargs,
 ) -> None:
-    """Join this process to a multi-host JAX run (SPMD over DCN + ICI).
+    """Join this process to a multi-process JAX run.
 
-    Thin wrapper over ``jax.distributed.initialize``: on cloud TPU slices
-    all three arguments are auto-discovered from the environment and the
-    call collapses to ``init_multihost()``. After it returns,
-    ``jax.devices()`` lists every chip in the slice and the mesh builders
-    below (and everything in this package built on ``shard_map``) operate
-    globally. Idempotent: a second call is a no-op.
+    Thin wrapper over ``jax.distributed.initialize``. Nothing tells JAX of
+    a GPU cluster, so a real multi-process run passes all three arguments
+    (``coordinator_address`` such as ``"localhost:<port>"``,
+    ``num_processes``, ``process_id``). After it returns, ``jax.devices()``
+    lists every device of every process and the mesh constructors below (and
+    everything in this package built on ``shard_map``) operate globally.
+    Idempotent: a second call is a no-op.
 
-    This is new multi-chip surface the reference does not have (it never
+    This is new multi-device surface the reference does not have (it never
     leaves one core — SURVEY.md section 2 rows 9-10); the entry point is
-    the DCN analog of its process-wide ``cpu_supports_avx`` capability
-    probe: run once up front, everything downstream just works.
+    the analog of its process-wide ``cpu_supports_avx`` capability probe:
+    run once up front, everything downstream just works.
     """
     if jax._src.distributed.global_state.client is not None:  # already up
         return
@@ -82,8 +87,7 @@ def init_multihost(
             **kwargs,
         )
     except ValueError:
-        # Auto-detection found no cluster (not on a TPU pod / no
-        # coordinator reachable). A single-process run needs no
+        # No cluster was given or found. A single-process run needs no
         # distributed client; a declared multi-process run must fail.
         if num_processes not in (None, 1):
             raise
@@ -95,9 +99,9 @@ def multihost_mesh(
     devices: list | None = None,
 ) -> Mesh:
     """Build a (host, time) mesh over the GLOBAL device list so collectives
-    along ``axis`` ride ICI within each host and only the host axis crosses
-    DCN. ``time_parallel`` defaults to the per-host chip count (the
-    ICI-friendly choice); the total device count must equal
+    along ``axis`` stay within each host (NVLink) and only the host axis
+    crosses the network. ``time_parallel`` defaults to the per-host device
+    count; the total device count must equal
     hosts * time_parallel. ``devices`` overrides ``jax.devices()`` for
     testing (device-list injection — real multi-host cannot run in CI)."""
     devs = list(devices if devices is not None else jax.devices())
@@ -108,7 +112,7 @@ def multihost_mesh(
     per_host = len(by_host[hosts[0]])
     if any(len(by_host[h]) != per_host for h in hosts):
         raise ValueError(
-            f"uneven chips per host: {[len(by_host[h]) for h in hosts]}"
+            f"uneven devices per host: {[len(by_host[h]) for h in hosts]}"
         )
     tp = time_parallel or per_host
     if tp != per_host:
@@ -116,8 +120,8 @@ def multihost_mesh(
             raise ValueError(
                 f"time_parallel={tp} does not divide {per_host * len(hosts)} devices"
             )
-    # host-major ordering: each mesh row is one host's chips, so the time
-    # axis maps onto ICI and only the host axis crosses DCN.
+    # host-major ordering: each mesh row is one host's devices, so the
+    # time axis stays inside a host and only the host axis crosses hosts.
     ordered = [d for h in hosts for d in by_host[h]]
     arr = np.asarray(ordered).reshape(-1, tp)
     return Mesh(arr, (HOST_AXIS, axis))

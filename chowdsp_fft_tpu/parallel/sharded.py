@@ -1,11 +1,11 @@
-"""Sharded streaming convolution: shard_map + ICI halo exchange.
+"""Sharded streaming convolution: shard_map + halo exchange.
 
-The TPU-native counterpart the BASELINE north star requires on top of the
-reference's single-core library: long streams are split into contiguous
-time chunks across a mesh axis; correct linear convolution across chunk
-boundaries needs each device to see the last (taps-1) samples of its left
-neighbor — a halo exchange, done with `jax.lax.ppermute` inside
-`shard_map` so XLA schedules it on the ICI alongside the local FFT work
+The multi-device layer on top of the reference's single-core library:
+long streams are split into contiguous time chunks across a mesh axis;
+correct linear convolution across chunk boundaries needs each device to
+see the last (taps-1) samples of its left neighbor — a halo exchange,
+done with `jax.lax.ppermute` inside `shard_map` so XLA schedules the
+collective (NCCL between GPUs) alongside the local FFT work
 (SURVEY.md section 5, "blockwise decomposition with a boundary-merge").
 
 ppermute's semantics (devices with no inbound edge receive zeros) give the
@@ -93,14 +93,10 @@ def _sharded_stream_filter(
     out_spec = P(*([None] * (x.ndim - 1) + [axis_name]))
 
     @functools.partial(
-        # check_vma=False: the Pallas engine's ShapeDtypeStructs don't carry
-        # varying-mesh-axes metadata; correctness is covered by the exact
-        # single-vs-sharded equivalence tests.
         shard_map,
         mesh=mesh,
         in_specs=in_specs,
         out_specs=out_spec,
-        check_vma=False,
     )
     def run(xl, hl):
         if halo == 0:
@@ -126,7 +122,7 @@ def sharded_fir_ols(
 ) -> jax.Array:
     """Overlap-save FIR over a time-sharded stream. Semantically equal to
     stream.fir_filter_ols on the gathered stream; the halo ppermute is the
-    only inter-chip traffic (taps-1 samples per boundary per call)."""
+    only inter-device traffic (taps-1 samples per boundary per call)."""
     taps = h.shape[-1]
     return _sharded_stream_filter(
         lambda xl, hl: fir_filter_ols(xl, hl, block=block),
@@ -160,7 +156,7 @@ def sharded_partitioned_fir(
 def shard_channels(x: jax.Array, mesh: Mesh, axis_name: str = CHANNEL_AXIS, dim: int = 0):
     """Place a (C, ...) channel batch sharded over a mesh axis. Per-channel
     transforms then run fully parallel with zero communication — the
-    multi-chip generalization of the reference's batch-free, lane-parallel
+    multi-device generalization of the reference's batch-free, lane-parallel
     design (SURVEY.md section 2 row 9)."""
     spec = [None] * x.ndim
     spec[dim] = axis_name

@@ -1,6 +1,6 @@
 """FFT plan construction: radix factorization + twiddle tables.
 
-TPU-native replacement for the reference's shared planning layer
+Replacement for the reference's shared planning layer
 (/root/reference/simd/chowdsp_fft_impl_common.hpp:51-228): `decompose()`
 factorizes N over radices {2,3,4,5}; `rffti1_ps`/`cffti1_ps` build FFTPACK
 twiddle tables; `fft_new_setup<...>` validates N and lays the tables out in
@@ -76,8 +76,8 @@ def is_valid_size(n: int, kind: TransformKind = FFT_COMPLEX) -> bool:
     factor over {2,3,5}. This is deliberately *looser* than the reference's
     per-backend constraints (N % 2w^2 == 0 for real, N % w^2 == 0 for
     complex, /root/reference/simd/chowdsp_fft_impl_common.hpp:165-177): the
-    SIMD-width divisibility was a CPU register-layout artifact with no TPU
-    analog.
+    SIMD-width divisibility was a CPU register-layout artifact with no
+    analog here.
     """
     try:
         factorize(n)
@@ -123,7 +123,7 @@ class StagePlan:
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True)
 class FFTPlan:
-    """Complete plan for a size-N transform (TPU analog of ``FFT_Setup``,
+    """Complete plan for a size-N transform (analog of ``FFT_Setup``,
     /root/reference/simd/chowdsp_fft_impl_sse.cpp:56-65).
 
     A plan is read-only and freely shareable — the same thread-safety
@@ -234,7 +234,7 @@ def _rfft_tw_np(n: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def make_plan(n: int, kind: TransformKind = FFT_COMPLEX) -> FFTPlan:
-    """Build a plan (TPU analog of ``fft_new_setup``,
+    """Build a plan (analog of ``fft_new_setup``,
     /root/reference/chowdsp_fft.cpp:252-256).
 
     Raises InvalidSizeError for unsupported N — the reference signals this by

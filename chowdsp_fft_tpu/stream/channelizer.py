@@ -5,11 +5,10 @@ uniformly spaced baseband channels, each decimated by C:
 
   1. commutate the stream into C polyphase branches;
   2. FIR each branch with the matching polyphase component of a prototype
-     low-pass (MXU convolutions, batched over branches/channels);
+     low-pass (one grouped XLA convolution over branches/channels);
   3. DFT across the branch axis per output step — this uses the
      framework's own complex FFT engine over a batch of T/C vectors,
-     exactly the "many small batched FFTs" shape the Pallas/Stockham
-     engines are built for.
+     the "many small batched FFTs" shape.
 
 No reference counterpart (chowdsp_fft stops at the transform layer); this
 is the capability the BASELINE north star adds on top.
@@ -42,6 +41,7 @@ class Channelizer:
         self.taps_per_branch = taps_per_branch
         self.engine = engine
         proto = design_lowpass(channels * taps_per_branch, 1.0 / channels)
+        self.proto = proto  # (C * K,) prototype low-pass
         # Polyphase components: branch p gets proto[p::C], newest-first.
         self.hpoly = jnp.flip(
             proto.reshape(taps_per_branch, channels).T, axis=-1
@@ -74,8 +74,8 @@ class Channelizer:
             # polyphase test.)
             rhs = self.hpoly.reshape(c, 1, k)
             # One grouped conv: each branch with its own taps. HIGHEST
-            # precision: the TPU default computes fp32 convs through bf16
-            # inputs (~5e-3 relative error).
+            # precision keeps it float32: a GPU may otherwise run fp32
+            # convolutions in TF32 (about three decimal digits).
             out = jax.lax.conv_general_dilated(
                 xb,
                 rhs,

@@ -1,10 +1,9 @@
 """Polyphase FIR decimation / interpolation.
 
 Part of the streaming SDR chain (BASELINE.json configs 3-5). The reference
-library has no resampler — this is new TPU-native surface area around the
-FFT core. The polyphase structure maps well to the MXU: each output sample
-is a dot product of tap phases, expressed below through
-`lax.conv_general_dilated`, which XLA lowers to MXU convolutions.
+library has no resampler — this is new surface area around the FFT core.
+Each output sample is a dot product of tap phases, expressed below through
+`lax.conv_general_dilated` (cuDNN on a GPU).
 """
 
 from __future__ import annotations
@@ -41,9 +40,9 @@ def design_lowpass(taps: int, cutoff: float, window: str = "hamming") -> jnp.nda
 def _conv_valid(x: jax.Array, h: jax.Array, stride: int) -> jax.Array:
     """Strided valid convolution of (B, T) with (taps,) -> (B, T_out).
 
-    precision=HIGHEST: the TPU default computes fp32 convolutions through
-    bf16 inputs (~5e-3 relative error — measured 0.05 abs on unit-variance
-    streams vs 2e-6 at HIGHEST), far outside this library's 2e-7*N bound.
+    precision=HIGHEST keeps the convolution float32: a GPU may otherwise
+    run fp32 convolutions in TF32 (about three decimal digits), far outside
+    this library's 2e-7*N bound.
     """
     lhs = x[:, None, :]  # (B, C=1, T)
     rhs = jnp.flip(h, -1)[None, None, :]  # (O=1, I=1, taps) conv kernel
@@ -70,9 +69,7 @@ def polyphase_decimate(
 
     Long streams are internally framed into overlapped `block`-sample rows
     (gather-free, stream/ols framing) so the convolution runs with a large
-    batch dimension: XLA's TPU lowering of a single-row (1, 1, T) conv
-    measured ~7ms for 1M samples — 300x slower than the same conv batched
-    as rows (benchmarks/NOTES.md).
+    batch dimension instead of as one (1, 1, T) row.
     """
     from .ols import _frame_overlap  # local import: avoid a module cycle
 
@@ -83,9 +80,6 @@ def polyphase_decimate(
     t = x.shape[-1]
     xb = x.reshape(-1, t)
     b = xb.shape[0]
-    # (An unrolled shifted-slice MAC-FIR "fast path" was tried here and
-    # REVERTED: arbitrary-offset lane slices relayout per tap, costing
-    # ~1ms/M-samples on wide rows — slower than the framed HIGHEST conv.)
     if t <= 2 * block:
         xb = jnp.pad(xb, ((0, 0), (taps - 1, 0)))  # zero initial state
         y = _conv_valid(xb, h, stride=factor)[..., : t // factor]
@@ -128,8 +122,7 @@ def polyphase_interpolate(
     scipy.signal.upfirdn(h*factor, x, factor, 1)[:T*factor] — the mirror
     convention of :func:`polyphase_decimate`, so interpolate(f) followed
     by decimate(f) round-trips without a time shift. Long streams are
-    framed into overlapped rows (single-row TPU convs are 2-300x slower;
-    see polyphase_decimate).
+    framed into overlapped rows (see polyphase_decimate).
     """
     x = jnp.asarray(x, jnp.float32)
     h = jnp.asarray(h, jnp.float32)

@@ -1,11 +1,11 @@
 """Short-time Fourier transform / inverse (spectral analysis-synthesis).
 
 Natural surface for an FFT framework (the reference stops at single
-transforms; its users build exactly this on top). TPU-first construction:
+transforms; its users build exactly this on top). Construction:
 
 - frames come from the gather-free slice+concat framing (ols._frame_overlap
   family) — never an XLA gather;
-- the batched frame FFT is one fused Pallas rfft over (frames, n_fft);
+- the batched frame FFT is one api rfft over (frames, n_fft);
 - synthesis uses weighted overlap-add with the COLA normalization computed
   host-side; the overlap-add scatter is expressed as two aligned
   adds of reshaped halves (for the standard hop = n_fft/2 case) or a

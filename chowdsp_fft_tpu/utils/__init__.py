@@ -1,3 +1,4 @@
-"""Utilities: native planner bindings, roofline math, profiling helpers."""
+"""Utilities: native planner bindings, roofline math, profiling helpers,
+the compile-cache location."""
 
-from . import native, profiling, roofline  # noqa: F401
+from . import compile_cache, native, profiling, roofline  # noqa: F401

@@ -41,10 +41,6 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.chow_fill_stage_twiddles.argtypes = [i32, dptr]
     lib.chow_fill_rfft_twiddles.restype = i32
     lib.chow_fill_rfft_twiddles.argtypes = [i32, dptr]
-    lib.chow_fill_fourstep_twiddles.restype = i32
-    lib.chow_fill_fourstep_twiddles.argtypes = [i32, i32, dptr]
-    lib.chow_fill_dft_matrix.restype = i32
-    lib.chow_fill_dft_matrix.argtypes = [i32, dptr]
     return lib
 
 
@@ -149,24 +145,3 @@ def rfft_twiddles(n: int) -> tuple[np.ndarray, np.ndarray] | None:
         return None
     return buf[:m].copy(), buf[m:].copy()
 
-
-def fourstep_twiddles(n: int, lanes: int) -> tuple[np.ndarray, np.ndarray] | None:
-    lib = get_lib()
-    if lib is None:
-        return None
-    n1 = n // lanes
-    buf = np.zeros(2 * n1 * lanes, np.float64)
-    if lib.chow_fill_fourstep_twiddles(n, lanes, buf) < 0:
-        return None
-    sz = n1 * lanes
-    return buf[:sz].reshape(n1, lanes).copy(), buf[sz:].reshape(n1, lanes).copy()
-
-
-def dft_matrix(l: int) -> tuple[np.ndarray, np.ndarray] | None:
-    lib = get_lib()
-    if lib is None:
-        return None
-    buf = np.zeros(2 * l * l, np.float64)
-    if lib.chow_fill_dft_matrix(l, buf) < 0:
-        return None
-    return buf[: l * l].reshape(l, l).copy(), buf[l * l :].reshape(l, l).copy()

@@ -1,10 +1,11 @@
 """Basics: plans, transforms, packed fast path, unscaled semantics.
 
-Run anywhere (CPU or TPU): python examples/01_transforms.py
+Run anywhere (CPU or GPU): python examples/01_transforms.py
 """
 
 import pathlib
 import sys
+import tempfile
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
@@ -24,8 +25,8 @@ spec = jax.jit(cf.rfft)(x)  # (batch, n//2+1) complex64
 back = jax.jit(cf.irfft)(spec) / n
 print("roundtrip max err:", float(jnp.abs(back - x).max()))
 
-# The performance-native interface: packed SoA planes (pffft's packed real
-# layout, plane-separated — one fused TPU kernel each way).
+# The packed interface: SoA planes (pffft's packed real layout,
+# plane-separated), the format the convolution paths use.
 re, im = jax.jit(cf.rfft_packed)(x)  # ((batch, n//2) f32) x 2
 print("DC:", float(re[0, 0]), " Nyquist (packed in im[:,0]):", float(im[0, 0]))
 
@@ -36,5 +37,7 @@ print("engines:", cf.available_engines(), "| N=4096 real ->", cf.engine_for(n, c
 from chowdsp_fft_tpu import plans
 
 p = cf.make_plan(n, cf.FFT_REAL)
-plans.save_plan(p, "/tmp/plan4096.npz")
-print("plan saved; radices:", p.radices)
+with tempfile.TemporaryDirectory() as d:
+    plans.save_plan(p, f"{d}/plan4096.npz")
+    q = plans.load_plan(f"{d}/plan4096.npz")
+print("plan saved and restored; radices:", q.radices)

@@ -1,4 +1,4 @@
-"""The flagship SDR chain + multi-chip sharding (virtual mesh friendly).
+"""The flagship SDR chain + multi-device sharding (virtual mesh friendly).
 
 Run with a virtual mesh:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -13,8 +13,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import numpy as np
 import jax
 
-# On some runtimes the TPU plugin ignores the JAX_PLATFORMS env var; force
-# the CPU virtual mesh through the config for this multi-device demo.
+# This demo runs on the CPU's virtual mesh; on a machine with several
+# GPU cards, drop this line and the mesh spans the cards.
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 
@@ -34,7 +34,7 @@ print("SDR audio:", audio.shape)
 n_dev = len(jax.devices())
 mesh = parallel.dsp_mesh(n_dev, axis=parallel.TIME_AXIS)
 
-# --- sharded streaming convolution (ppermute halo over ICI) -------------
+# --- sharded streaming convolution (ppermute halo between cards) --------
 x = jnp.asarray(rng.standard_normal(n_dev * 16384), jnp.float32)
 taps = jnp.asarray(rng.standard_normal(2048) / 64, jnp.float32)
 y = parallel.sharded_partitioned_fir(x, taps, mesh, block=1024)

@@ -1,4 +1,4 @@
-"""Round-2 knobs: the merge-precision trade and the streaming latency knob.
+"""Engine choice and accuracy, and the streaming latency knob.
 
 Run anywhere: python examples/04_precision_and_streaming.py
 """
@@ -17,29 +17,21 @@ from chowdsp_fft_tpu.stream import PartitionedFIR, partitioned_fir_apply
 
 rng = np.random.default_rng(7)
 
-# --- merge precision: explicit speed/accuracy trade (use_avx-flag analog) ---
-# Default is fp32-HIGHEST (the only mode inside the reference's 2e-7*N
-# error bound). bf16x3 runs the MXU merge ~2x faster at ~1.8e-3 absolute
-# error on unit-variance input at N=4096 — an OPT-IN for error-tolerant
-# pipelines. The mode is read at trace time: enter the context before the
-# first jit of the flow.
+# --- engines: both stay inside the reference's 2e-7*N error bound ----------
+# (the use_avx-flag analog: an explicit engine= picks the implementation;
+# "auto" takes the xla engine, cuFFT on a GPU).
 n = 4096
 x = jnp.asarray(rng.standard_normal((64, n)), jnp.float32)
 ref = np.fft.rfft(np.asarray(x, np.float64), axis=-1)
-
-re_hi, im_hi = cf.rfft_packed(x)  # compliant default
-with cf.merge_precision("bf16x3"):
-    re_lo, im_lo = cf.rfft_packed(x)
-
-err_hi = np.abs(np.asarray(re_hi)[:, 1:] - ref[:, 1 : n // 2].real).max()
-err_lo = np.abs(np.asarray(re_lo)[:, 1:] - ref[:, 1 : n // 2].real).max()
-print(f"merge precision: highest err {err_hi:.2e}  bf16x3 err {err_lo:.2e} "
-      f"(reference bound {2e-7 * n:.1e})")
+for engine in cf.available_engines():
+    re, _ = cf.rfft_packed(x, engine=engine)
+    err = np.abs(np.asarray(re)[:, 1:] - ref[:, 1 : n // 2].real).max()
+    print(f"engine {engine:9}: max err {err:.2e} (reference bound {2e-7 * n:.1e})")
 
 # --- streaming FDL: latency vs throughput with step_k ---------------------
-# step(K=1) is one kernel launch per block (lowest latency); step_k(K)
-# amortizes the launch floor over K blocks (measured 69 -> 2.0 us/block at
-# K=64 on a v5e); apply_offline processes the whole stream scan-free.
+# step(K=1) is one set of kernel launches per block (lowest latency);
+# step_k(K) amortizes the launches over K blocks; apply_offline processes
+# the whole stream scan-free.
 taps, block = 48000, 1024  # a 1-second reverb IR @ 48kHz
 h = (rng.standard_normal(taps) * np.exp(-np.linspace(0, 8, taps))).astype(np.float32) / 100
 fir = PartitionedFIR(jnp.asarray(h), block=block)

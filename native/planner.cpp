@@ -115,36 +115,4 @@ int chow_fill_rfft_twiddles(int n, double* out) {
     return m;
 }
 
-// Four-step tables for the Pallas engine: W_N^(k1*n2) as an (n1, lanes)
-// row-major complex table, out = [re | im] planes.
-int chow_fill_fourstep_twiddles(int n, int lanes, double* out) {
-    if (n % lanes != 0) return -1;
-    const int n1 = n / lanes;
-    double* re = out;
-    double* im = out + static_cast<std::int64_t>(n1) * lanes;
-    for (int k1 = 0; k1 < n1; ++k1) {
-        for (int n2 = 0; n2 < lanes; ++n2) {
-            cis(static_cast<std::int64_t>(k1) * n2, n, re, im);
-            ++re;
-            ++im;
-        }
-    }
-    return n1;
-}
-
-// DFT matrix W_L^(j*k), (L, L) row-major, out = [re | im].
-int chow_fill_dft_matrix(int l, double* out) {
-    if (l < 1) return -1;
-    double* re = out;
-    double* im = out + static_cast<std::int64_t>(l) * l;
-    for (int j = 0; j < l; ++j) {
-        for (int k = 0; k < l; ++k) {
-            cis(static_cast<std::int64_t>(j) * k, l, re, im);
-            ++re;
-            ++im;
-        }
-    }
-    return l;
-}
-
 }  // extern "C"

@@ -1,11 +1,9 @@
-"""Autodiff through the Pallas engine.
+"""Autodiff through the xla engine.
 
-Pallas calls are opaque to JAX AD, so the engine defines custom VJPs:
-transform transposes are the opposite-direction transform with the same
-ordering flag; packed real transposes carry a reciprocal DC/Nyquist-vs-
-paired-bin weighting (ops/pallas_fft.py). The differential reference is
-the pure-jnp Stockham engine, which JAX differentiates natively — grads
-must agree to fp32 tolerance.
+JAX differentiates ``jnp.fft`` through its own transpose rules, and the
+packed-plane adapters around it are plain jnp. The differential reference
+is the pure-jnp Stockham engine, which JAX differentiates natively — grads
+must agree to fp32 tolerance, with the library's unscaled convention.
 """
 
 import numpy as np
@@ -22,7 +20,7 @@ def x(rng):
 
 
 def _grad_match(make_loss, arg, rtol=1e-4):
-    gp = np.asarray(jax.grad(make_loss("pallas"))(arg))
+    gp = np.asarray(jax.grad(make_loss("xla"))(arg))
     gs = np.asarray(jax.grad(make_loss("stockham"))(arg))
     assert np.abs(gp - gs).max() / max(np.abs(gs).max(), 1e-9) < rtol
 
@@ -68,17 +66,16 @@ def test_grad_unordered_packed_chain(x):
     _grad_match(mk, x)
 
 
-def test_grad_composite_largeN_adjoint(rng):
-    """Regression (ADVICE r1): the direct-real composite path (N > 2^17)
-    must route through the custom_vjp wrappers — jax.grad used to fail with
-    'Linearization failed'. Verified via adjoint consistency
-    <J v, u> == <v, J^T u> on the pallas engine at N=2^18."""
+@pytest.mark.parametrize("engine", ["xla", "stockham"])
+def test_grad_largeN_adjoint(engine, rng):
+    """Adjoint consistency <J v, u> == <v, J^T u> of the packed real
+    transforms at N=2^18."""
     n = 1 << 18
     x = jnp.asarray(rng.standard_normal((1, n)), jnp.float32)
     u_re = jnp.asarray(rng.standard_normal((1, n // 2)), jnp.float32)
     u_im = jnp.asarray(rng.standard_normal((1, n // 2)), jnp.float32)
 
-    f = lambda v: cf.rfft_packed(v, engine="pallas")
+    f = lambda v: cf.rfft_packed(v, engine=engine)
     (y_re, y_im), vjp = jax.vjp(f, x)
     (ct,) = vjp((u_re, u_im))
     # J is real-linear: <f(x), u> == <x, J^T u> for linear f. The inner
@@ -92,8 +89,8 @@ def test_grad_composite_largeN_adjoint(rng):
     )
     assert abs(lhs - rhs) / scale < 1e-6
 
-    # Inverse path too (used to hit the same missing-rule failure).
-    g = lambda re, im: cf.irfft_packed(re, im, engine="pallas")
+    # Inverse path too.
+    g = lambda re, im: cf.irfft_packed(re, im, engine=engine)
     yt, vjp_i = jax.vjp(g, y_re, y_im)
     w = jnp.asarray(rng.standard_normal(yt.shape), jnp.float32)
     ct_re, ct_im = vjp_i(w)
@@ -115,9 +112,17 @@ def test_grad_stream_fir(rng):
         y = fir_filter_ols(x, h, block=512)
         return jnp.sum(y**2)
 
-    g = jax.grad(loss)(h0)
-    # numerical check on a single tap
-    eps = 1e-3
-    e0 = jnp.zeros_like(h0).at[7].set(eps)
-    num = (loss(h0 + e0) - loss(h0 - e0)) / (2 * eps)
-    assert np.abs(float(g[7]) - float(num)) / max(abs(float(num)), 1e-6) < 5e-2
+    g = np.asarray(jax.grad(loss)(h0))
+    # Exact gradient in float64: y = lfilter(h, x), so
+    # dloss/dh_k = 2 * sum_t y[t] * x[t - k]. (A float32 finite
+    # difference of a loss ~4e3 resolves only ~1e-3 and flaked with the
+    # random draw.)
+    import scipy.signal as sig
+
+    xd = np.asarray(x, np.float64)
+    y = sig.lfilter(np.asarray(h0, np.float64), [1.0], xd, axis=-1)
+    t = xd.shape[-1]
+    exact = np.array(
+        [2.0 * np.sum(y[:, k:] * xd[:, : t - k]) for k in range(h0.shape[0])]
+    )
+    np.testing.assert_allclose(g, exact, atol=1e-4 * np.abs(exact).max(), rtol=0)

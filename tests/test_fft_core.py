@@ -53,7 +53,7 @@ def test_invalid_size_raises():
 
 def test_plan_bytes_positive():
     assert cf.plan_bytes(4096, cf.FFT_REAL) > 0
-    assert cf.vector_width_bytes() == 512
+    assert cf.vector_width_bytes() == 128  # one warp: 32 float32 lanes
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +195,7 @@ def test_accumulate(rng):
 
 
 # ---------------------------------------------------------------------------
-# Batch / vmap / jit compatibility (TPU-native requirements)
+# Batch / vmap / jit compatibility
 # ---------------------------------------------------------------------------
 
 
@@ -229,7 +229,7 @@ def test_jit_and_grad(rng):
 
 
 def test_plan_save_load_roundtrip(tmp_path, rng):
-    """Checkpoint/resume of plans: bit-exact .npz round trip (the TPU
+    """Checkpoint/resume of plans: bit-exact .npz round trip (the
     analog of the reference's caller-owned preallocated setups,
     /root/reference/chowdsp_fft.h:98-118)."""
     from chowdsp_fft_tpu import plans as plans_mod

@@ -45,23 +45,6 @@ def test_native_rfft_twiddles(lib):
     np.testing.assert_allclose(im, np.sin(-2 * np.pi * k / n), atol=1e-14)
 
 
-def test_native_dft_matrix_unitary(lib):
-    l = 128
-    re, im = native.dft_matrix(l)
-    M = re + 1j * im
-    np.testing.assert_allclose(M @ M.conj().T / l, np.eye(l), atol=1e-12)
-
-
-def test_native_fourstep(lib):
-    n, lanes = 4096, 128
-    re, im = native.fourstep_twiddles(n, lanes)
-    k1 = np.arange(n // lanes)[:, None]
-    n2 = np.arange(lanes)[None, :]
-    ang = -2 * np.pi * (k1 * n2 % n) / n
-    np.testing.assert_allclose(re, np.cos(ang), atol=1e-14)
-    np.testing.assert_allclose(im, np.sin(ang), atol=1e-14)
-
-
 def test_plans_use_native_when_available(lib):
     # A plan built while the native planner is available must still produce
     # a correct FFT (integration through plans._plan_tables_np).
@@ -74,13 +57,21 @@ def test_plans_use_native_when_available(lib):
     np.testing.assert_allclose(got, ref, atol=2e-7 * 1024, rtol=0)
 
 
-def test_roofline_sanity():
-    from chowdsp_fft_tpu.utils.roofline import fft_roofline, conv_roofline
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_plans_use_numpy_tables_without_native(n, monkeypatch):
+    """With the native planner unavailable the plan tables come from numpy
+    float64 and the transform still meets the reference bound."""
+    import chowdsp_fft_tpu as cf
 
-    r = fft_roofline(4096, 1024, "real")
-    # fp32 merge-matmul puts this config near the memory/compute crossover
-    assert r.bound in ("memory", "compute")
-    assert 20e9 < r.samples_per_s < 200e9
-    assert r.seconds_memory > 0 and r.seconds_compute > 0
-    c = conv_roofline(8192, 128)
-    assert c.samples_per_s > 0
+    monkeypatch.setattr(native, "available", lambda: False)
+    plans._plan_tables_np.cache_clear()
+    plans._rfft_tw_np.cache_clear()
+    try:
+        plan = plans.make_plan(n, plans.FFT_REAL)
+        x = np.random.default_rng(1).standard_normal((2, n)).astype(np.float32)
+        got = np.asarray(cf.rfft(x, plan=plan, engine="stockham"))
+        ref = np.fft.rfft(x.astype(np.float64), axis=-1)
+        np.testing.assert_allclose(got, ref, atol=2e-7 * n, rtol=0)
+    finally:
+        plans._plan_tables_np.cache_clear()
+        plans._rfft_tw_np.cache_clear()

@@ -157,15 +157,15 @@ def test_halo_exchange_guards():
 
 
 def test_halo_overlap_structure(mesh8):
-    """Evidence for the weak-scaling model's overlapped row (VERDICT r2):
-    the halo ppermute and the main filter compute must share no dataflow
-    edge, i.e. everything downstream of the collective is the small
-    boundary correction — otherwise XLA can never schedule the collective
-    concurrently with the block FFTs and the model's overlap_comm=True
-    branch is fiction. Asserted on the shard_map body's jaxpr: every op
-    downstream of ppermute is halo-sized, and at least one shard-sized op
-    exists outside the downstream set."""
+    """The halo ppermute and the main filter compute must share no
+    dataflow edge, i.e. everything downstream of the collective is the
+    small boundary correction — otherwise XLA can never schedule the
+    collective concurrently with the block FFTs. Asserted on the
+    shard_map body's jaxpr: every op downstream of ppermute is
+    halo-sized, and at least one shard-sized op exists outside the
+    downstream set."""
     import jax
+    import jax.extend
 
     taps = 257
     t = 8 * 65536
@@ -506,8 +506,8 @@ def test_sharded_fft_batched_matches_single(rng):
 
 
 def test_multihost_mesh_device_injection():
-    """multihost_mesh lays hosts out as mesh rows (time axis = ICI within
-    a host, host axis = DCN) — validated by device-list injection since
+    """multihost_mesh lays hosts out as mesh rows (time axis within a
+    host, host axis across hosts) — validated by device-list injection since
     real multi-host cannot run here (SURVEY.md section 7 item 5)."""
 
     class FakeDev:
@@ -553,10 +553,11 @@ def test_dist_split_invalid_n_raises_cleanly():
     ValueError up front, not fail deep inside kernel table construction.
     (Round 3 widened the domain to {2,3,5}-smooth N — the invalid cases
     here are a non-smooth N, a smooth N whose factors cannot both be
-    device-divisible, and a too-small N.)"""
+    device-divisible, and an N too small for two device-divisible
+    factors.)"""
     from chowdsp_fft_tpu.parallel import dist_fft
 
-    for bad_n in (7 * (1 << 16), 100000, 1 << 10):
+    for bad_n in (7 * (1 << 16), 100000, 1 << 5):
         with pytest.raises(ValueError, match="smooth"):
             dist_fft._dist_split(bad_n, 8)
 

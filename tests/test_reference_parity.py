@@ -2,9 +2,9 @@
 
 The reference's own test strategy is differential against upstream pffft
 (/root/reference/test/test.cpp); ours goes one better and runs differential
-against the reference itself: the C++ library is compiled from
-/root/reference at test time (SSE path) and driven through ctypes, and the
-TPU framework must reproduce its transforms within the reference's C++
+against the reference itself: the C++ library is compiled from the
+reference checkout at test time (SSE path) and driven through ctypes, and
+this framework must reproduce its transforms within the reference's C++
 bound of 2.0e-7*N (test.cpp:9-14).
 
 The size matrix mirrors the reference suite exactly (test.cpp:270-304):
@@ -283,8 +283,8 @@ def test_real_convolution_matches_reference(n, ref):
 def test_use_avx_setup_matches(n, kind, ref):
     """The reference's AVX test matrix (test.cpp:287-304) re-runs every size
     with use_avx=true; on this SSE-only build that setup takes the AVX->SSE
-    fallback branch and must behave identically — the analog of our engine
-    registry's supports/prefers fallback. Drive it and compare against us."""
+    fallback branch and must behave identically — the analog of our
+    explicit engine= choice. Drive it and compare against us."""
     if kind == FFT_COMPLEX:
         buf = _sine_complex(n)
         z = (buf[0::2] + 1j * buf[1::2]).astype(np.complex64)

@@ -1,114 +1,75 @@
-"""The roofline calculator is the single denominator for every reported
-fraction (bench.py vs_baseline/vs_governing, sweep config2 columns), so its
-invariants are load-bearing: a silent change here re-grades every recorded
-benchmark. See BASELINE.md (re-anchored gate) and benchmarks/ROOFLINE.md
-(pass-model derivation)."""
+"""The bytes-and-flops model and the peak table are the single denominator
+for every roofline share the benchmark reports, so their invariants are
+pinned here."""
 
 import math
 
-from chowdsp_fft_tpu.utils.roofline import V5E, conv_roofline, fft_roofline
+import pytest
+
+from chowdsp_fft_tpu.utils.roofline import PEAKS, conv_cost, fft_cost, peak_for
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
-def test_headline_bounds_match_baseline_doc():
-    r = fft_roofline(4096, 1024, "real")
-    # memory bound: read N fp32 + write (N/2+1) complex64 per row
-    assert math.isclose(
-        r.seconds_memory, 1024 * (4096 * 4 + 2049 * 8) / V5E.hbm_bytes_per_s
-    )
-    # compliant merge pass floor alone exceeds the memory bound (the
-    # BASELINE.md impossibility argument)
-    merge_s = 1024 * 32 * 2 * 6 / 8.0 / V5E.mxu_clock_hz
-    assert merge_s > r.seconds_memory
-    assert r.seconds_compute > merge_s  # VPU stages add on top
-    # serial-phase governing bound = sum, not max
-    assert math.isclose(r.seconds_serial, r.seconds_memory + r.seconds_compute)
-    # the documented numbers: ~107us serial, ~39 Gs/s, mem ceiling ~0.38
-    assert 100e-6 < r.seconds_serial < 115e-6
-    assert 0.36 < r.seconds_memory / r.seconds_serial < 0.40
+def test_rfft_bytes_and_flops_from_shape():
+    c = fft_cost(4096, 1024, "real")
+    # read N float32, write N/2+1 complex64, per row
+    assert c.bytes == 1024 * (4096 * 4 + 2049 * 8)
+    assert math.isclose(c.flops, 1024 * 2.5 * 4096 * 12)
+    assert c.samples == 4096 * 1024
 
 
-def test_bench_and_sweep_share_the_denominator():
+def test_cfft_bytes_and_flops_from_shape():
+    c = fft_cost(1 << 20, 64, "complex")
+    assert c.bytes == 64 * 2 * (1 << 20) * 8
+    assert math.isclose(c.flops, 64 * 5.0 * (1 << 20) * 20)
+    with pytest.raises(ValueError, match="kind"):
+        fft_cost(256, 1, "hermitian")
+
+
+def test_conv_cost_is_two_transforms_plus_product():
+    n, b = 2048, 64
+    c = conv_cost(n, b)
+    f = fft_cost(n, b, "real")
+    assert c.bytes == 2 * f.bytes + b * 3 * (n // 2 + 1) * 8
+    assert math.isclose(c.flops, 2 * f.flops + b * 6 * (n // 2 + 1))
+    assert c.samples == n * b
+
+
+def test_h100_peaks_carry_their_source():
+    p = peak_for(H100)
+    assert p.bytes_per_s == 3.35e12
+    assert p.f32_flops == 67e12
+    assert "data sheet" in p.source
+    assert all(v.source for v in PEAKS.values())
+
+
+@pytest.mark.parametrize("kind", ["NVIDIA A100-SXM4-80GB", "cpu", "NVIDIA H100"])
+def test_unknown_device_kind_raises(kind):
+    with pytest.raises(ValueError, match="no peak table entry"):
+        peak_for(kind)
+
+
+@pytest.mark.parametrize("n", [256, 4096, 1 << 20])
+def test_fft_is_memory_bound_on_h100(n):
+    """A float32 FFT does ~2.5-6 flop/byte, below the H100's ridge of
+    67e12 / 3.35e12 = 20: its least time is bytes over bandwidth, and a
+    time at that bound is a share of 1."""
+    p = peak_for(H100)
+    for kind in ("real", "complex"):
+        c = fft_cost(n, 64, kind)
+        assert c.flops / c.bytes < p.f32_flops / p.bytes_per_s
+        assert c.bound(p) == "memory"
+        t = c.bytes / p.bytes_per_s
+        assert math.isclose(c.seconds(p), t)
+        assert math.isclose(c.share(2 * t, p), 0.5)
+
+
+def test_bench_uses_the_model():
     import bench
 
-    roof_mem, roof_gov = bench.roofline_msamples()
-    r = fft_roofline(bench.N, bench.BATCH, "real")
-    assert math.isclose(roof_mem, bench.BATCH * bench.N / r.seconds_memory / 1e6)
-    assert math.isclose(roof_gov, r.samples_per_s_serial / 1e6)
-
-
-def test_serial_bound_monotonic_in_n():
-    prev = None
-    for e in range(8, 16):
-        r = fft_roofline(2**e, 1024, "real")
-        if prev is not None:
-            assert r.seconds_serial > prev
-        prev = r.seconds_serial
-
-
-def test_two_level_tier_matches_dispatch():
-    """The model's level switch must track the engine's single-kernel
-    ceiling, and the composite tier doubles the memory term (two HBM
-    round trips) — the denominator behind the sweep's large-N rows."""
-    from chowdsp_fft_tpu.ops import pallas_fft
-    from chowdsp_fft_tpu.utils.roofline import (
-        ORDERED_IN_KERNEL_MAX_N1,
-        SINGLE_KERNEL_MAX_N,
+    assert math.isclose(
+        bench.bound_seconds(H100), fft_cost(bench.N, bench.BATCH, "real").bytes / 3.35e12
     )
-
-    assert SINGLE_KERNEL_MAX_N == pallas_fft._MAX_N
-    assert ORDERED_IN_KERNEL_MAX_N1 == pallas_fft._ORDERED_IN_KERNEL_MAX_N1
-    # unordered basis isolates the level structure from the reorder charge
-    r1 = fft_roofline(1 << 17, 32, "complex", ordered=False)
-    r2 = fft_roofline(1 << 18, 16, "complex")
-    # Two HBM round trips x the measured un-aliased footprint floor (2x —
-    # the composite's level kernels cannot alias, NOTES.md round-5 tier):
-    # 4x the one-level memory term at equal element count.
-    assert math.isclose(r2.seconds_memory, 4 * r1.seconds_memory)
-    # forcing levels overrides the tier
-    f = fft_roofline(1 << 18, 16, "complex", levels=1, ordered=False)
-    assert math.isclose(f.seconds_memory, r1.seconds_memory)
-    # Below the ~32 MB live-footprint window the floor does not apply.
-    small = fft_roofline(1 << 18, 4, "complex")
-    one = fft_roofline(1 << 17, 8, "complex", ordered=False)
-    assert math.isclose(small.seconds_memory, 2 * one.seconds_memory)
-    # Ordered complex above the in-kernel reorder gate carries exactly one
-    # extra HBM round trip (the digit transpose); at/below the gate the
-    # ordered and unordered bounds coincide (round-5 gate law,
-    # scratch/r5_ordkernel_ab.py).
-    above = fft_roofline(1 << 14, 256, "complex")
-    above_u = fft_roofline(1 << 14, 256, "complex", ordered=False)
-    assert math.isclose(above.seconds_memory, 2 * above_u.seconds_memory)
-    at = fft_roofline(1 << 13, 512, "complex")
-    at_u = fft_roofline(1 << 13, 512, "complex", ordered=False)
-    assert math.isclose(at.seconds_memory, at_u.seconds_memory)
-    # complex N=4096 serial bound ~187us (ROOFLINE.md table)
-    rc = fft_roofline(4096, 1024, "complex")
-    assert 180e-6 < rc.seconds_serial < 195e-6
-
-
-def test_single_kernel_predicate_matches_engine():
-    """Round-3 review fix: the medium smooth non-multiples of 128 (576,
-    960, 3600, ...) dispatch as TWO-level direct-DFT composites, so their
-    roofline denominator must carry two HBM round trips — grading them
-    against a one-level bound made exactly the sweep rows added to measure
-    that feature look unreachable. Pin the model's tier predicate to the
-    engine's dispatch for a spread of sizes."""
-    from chowdsp_fft_tpu.ops import pallas_fft
-    from chowdsp_fft_tpu.utils.roofline import _MAX_DIRECT_N, _single_kernel
-
-    assert _MAX_DIRECT_N == pallas_fft._MAX_SMALL_FALLBACK
-    for n in (128, 480, 511, 512, 576, 960, 3600, 4096, 1 << 17, 1 << 18):
-        engine_single = pallas_fft._small_dispatch(n) or (
-            n <= pallas_fft._MAX_N and pallas_fft._is_smooth_multiple(n)
-        )
-        assert _single_kernel(n) == engine_single, n
-        expect_levels = 1 if engine_single else 2
-        r = fft_roofline(n, 8, "real")
-        forced = fft_roofline(n, 8, "real", levels=expect_levels)
-        assert math.isclose(r.seconds_memory, forced.seconds_memory), n
-
-
-def test_conv_roofline_carries_n_samples():
-    r = conv_roofline(2048, 64)
-    assert r.n_samples == 2048 * 64
-    assert r.samples_per_s_serial < r.samples_per_s
+    with pytest.raises(ValueError):
+        bench.bound_seconds("cpu")
